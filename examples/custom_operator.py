@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Matrix-free solves through user callbacks (custom-operator parity).
 
-TPU-native counterpart of the reference's ``HpddmCustomOperatorSolve``
+Counterpart of the reference's ``HpddmCustomOperatorSolve``
 C/Fortran examples (examples/custom_operator.c:34-53, custom_operator.f90):
 the Krylov layer driven by a user ``mv``/``apply`` callback pair with no
 assembled matrix anywhere. The operator is the reference's: on "rank" s of
@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main(argv=None):
-    import jax
     import jax.numpy as jnp
+    from hpddm_tpu.device import working_dtype
     from hpddm_tpu.options import Options
     from hpddm_tpu.solvers.base import LinearOperator
     from hpddm_tpu.solvers.krylov import solve
@@ -38,7 +38,7 @@ def main(argv=None):
     n = int(opt.app()["n"])
     mu = int(opt.app()["mu"])
     S = int(opt.app()["S"])
-    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
+    dtype = working_dtype()
 
     diag = (np.arange(S)[:, None] * n + np.arange(n)[None, :] + 2.0)
     dj = jnp.asarray(diag.astype(dtype))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Sparse least-squares driver: CGLS + algebraic DD on the normal equations.
 
-TPU-native counterpart of the reference's least-squares CI workflow
+Counterpart of the reference's least-squares CI workflow
 (.github/workflows/aldaas2021robust.sh:28-56: KSPLSQR + PCHPDDM on the
 normal equations of rectangular matrices). With no file argument a
 regularized grid-gradient problem is generated (A = [grad; sqrt(delta) I],

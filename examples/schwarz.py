@@ -24,6 +24,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main(argv=None):
     import jax
     import jax.numpy as jnp
+    from hpddm_tpu.device import working_dtype
     from hpddm_tpu.models import diffusion2d
     from hpddm_tpu.options import Options
     from hpddm_tpu.precond.schwarz import Schwarz, compute_residual
@@ -46,8 +47,8 @@ def main(argv=None):
     sym = bool(opt.app().get("symmetric_csr", 0))
     verbosity = int(opt.val("verbosity", 0))
 
-    # f64 is unsupported on TPU; the oracles still hold in f32 at tol 1e-6
-    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
+    # f64 on the CPU, f32 on the GPU; the oracles hold in both at tol 1e-6
+    dtype = working_dtype()
 
     two_level = opt.set("schwarz_coarse_correction")
     gen = diffusion2d.generate(S, Nx, Ny, overlap=overlap, sym=sym, mu=mu,

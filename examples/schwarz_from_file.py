@@ -18,8 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main(argv=None):
-    import jax
     import jax.numpy as jnp
+    from hpddm_tpu.device import working_dtype
     from hpddm_tpu.core.csr import MatrixCSR
     from hpddm_tpu.models import fromfile
     from hpddm_tpu.options import Options
@@ -36,7 +36,7 @@ def main(argv=None):
     if not path or not isinstance(path, str):
         print("missing -matrix_filename", file=sys.stderr)
         return 2
-    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
+    dtype = working_dtype()
     A = MatrixCSR.from_file(path, dtype=dtype)
     rhs_path = opt.app().get("rhs_filename")
     f_global = None
@@ -44,11 +44,8 @@ def main(argv=None):
         f_global = np.loadtxt(rhs_path).astype(dtype)
 
     S = int(opt.app()["N"])
-    # TPU: band-order local numberings so the windowed lane-gather SpMV
-    # and the Pallas exchange engage (identical math, ~300x SpMV)
     gen = fromfile.decompose(A, S, overlap=int(opt.app()["overlap"]),
-                             f_global=f_global,
-                             rcm_local=jax.default_backend() != "cpu")
+                             f_global=f_global)
     sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d, options=opt)
     if opt.val("schwarz_coarse_correction") is not None:
         # fully-algebraic GenEO (round 5): SPSD splitting of the assembled

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Saddle-point driver: lid-driven MAC Stokes solved by the Schur-
-complement CG with DD inner solves (the TPU-native counterpart of
+complement CG with DD inner solves (the counterpart of
 PCHPDDM's -pc_hpddm_schur_precondition saddle-point support,
 interface/petsc/pc/pchpddm.cxx:21).
 

@@ -9,8 +9,8 @@ and solved with two-level GenEO-RAS on FEM Neumann matrices:
         [-contrast 1e4] [-hpddm_schwarz_coarse_correction deflated]
         [-hpddm_geneo_nu 8] [-hpddm_* ...]
 
-On TPU the pipeline runs the windowed lane-gather SpMV + Pallas exchange
-(band-ordered local numbering) and RCM banded exact local solves.
+The pipeline runs the ELL SpMV with the general exchange (band-ordered
+local numbering) and RCM banded exact local solves.
 Exit 0 on convergence with a true global residual check."""
 
 import os
@@ -22,8 +22,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main(argv=None):
-    import jax
     import jax.numpy as jnp
+    from hpddm_tpu.device import working_dtype
     from hpddm_tpu.models import unstructured
     from hpddm_tpu.options import Options
     from hpddm_tpu.precond.schwarz import Schwarz
@@ -60,7 +60,7 @@ def main(argv=None):
     if two_level:
         sch.solve_gevp(gen.neumann)
     state = sch.build()
-    dtype = np.float64 if jax.default_backend() == "cpu" else np.float32
+    dtype = working_dtype()
     f = np.zeros((S, sch.n_max, 1), dtype=dtype)
     for s in range(S):
         f[s, : gen.n_loc[s]] = gen.f[s]

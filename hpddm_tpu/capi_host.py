@@ -2,13 +2,14 @@
 
 Mirror of the reference's C interface (interface/HPDDM.h:66-123:
 HpddmOption*, HpddmMatrixCSR*, HpddmSubdomain*, HpddmSchwarz*,
-HpddmSolve) for the TPU runtime: the C shim embeds CPython and forwards
+HpddmSolve): the C shim embeds CPython and forwards
 every call here with raw pointers as integers; this module wraps them as
 numpy views (zero-copy in, explicit copy-out) and drives the normal
 hpddm_tpu API.  Handles are integer keys into a registry.
 
 K is double on the C side; the device dtype follows the backend (f32 on
-TPU, f64 on CPU) exactly like the in-tree models.
+the GPU, f64 on the CPU) exactly like the in-tree models
+(hpddm_tpu.device.working_dtype).
 """
 
 from __future__ import annotations
@@ -25,11 +26,12 @@ _ids = itertools.count(1)
 
 
 def _ensure_x64():
-    """The embedded interpreter starts with jax defaults; on the CPU
-    backend enable x64 so K=double survives the boundary (TPU computes
-    f32 regardless — the in-tree model convention)."""
+    """The embedded interpreter starts with jax defaults; where the
+    working dtype is f64 (the CPU) enable x64 so K=double survives the
+    boundary (the GPU computes f32 — the in-tree model convention)."""
     import jax
-    if jax.default_backend() in ("cpu",):
+    from hpddm_tpu.device import working_dtype
+    if working_dtype() == np.float64:
         jax.config.update("jax_enable_x64", True)
 
 
@@ -52,9 +54,8 @@ def _arr(ptr: int, n: int, dtype):
 
 
 def _device_dtype():
-    import jax
-    return np.float32 if jax.default_backend() not in ("cpu",) \
-        else np.float64
+    from hpddm_tpu.device import working_dtype
+    return working_dtype()
 
 
 # ---------------------------------------------------------------- options
@@ -132,7 +133,7 @@ def csrmm(h: int, x: int, y: int, mu: int) -> int:
 # -------------------------------------------------------------- subdomain
 def subdomain_numfact(h_mat: int) -> int:
     """HpddmSubdomainNumfact: exact local factorization (RCM banded on
-    device — the TPU analogue of the sparse direct numfact)."""
+    device — the analogue of the sparse direct numfact)."""
     import jax.numpy as jnp
     from hpddm_tpu.ops.banded_solve import build_banded_solver_rcm
     A = _registry[h_mat]

@@ -1,8 +1,8 @@
 """Host-side sparse matrix container.
 
-TPU-native analogue of ``MatrixCSR<K>`` (reference:
+Host-side analogue of ``MatrixCSR<K>`` (reference:
 include/HPDDM_matrix.hpp:156-394). This is *setup-path only*: on device the
-matrix lives in TPU-regular formats (see core/formats.py). The container
+matrix lives in fixed-shape formats (see core/formats.py). The container
 wraps scipy.sparse for host manipulation and keeps HPDDM's conventions:
 
 * optional symmetric storage (``sym=True``: only the lower triangle is

@@ -1,17 +1,17 @@
-"""TPU-regular device sparse formats, batched over subdomains.
+"""Fixed-shape device sparse formats, batched over subdomains.
 
 The reference computes local SpMV/SpMM on CSR/BSR with MKL or an OpenMP
 fallback (include/HPDDM_wrapper.hpp:123-146,617-700). CSR's indirect,
-variable-length rows defeat XLA/MXU tiling, so on TPU the local matrices are
-stored in fixed-shape formats with a leading subdomain axis ``S`` that is
+variable-length rows defeat XLA's static shapes, so here the local matrices
+are stored in fixed-shape formats with a leading subdomain axis ``S`` that is
 sharded one-subdomain-per-chip (or batched on one chip):
 
 * ``BatchedDIA`` — diagonal storage: for stencil matrices (structured grids)
-  SpMV is ``sum_k vals[k] * shift(x, off[k])`` — pure VPU, zero gathers.
+  SpMV is ``sum_k vals[k] * shift(x, off[k])`` — elementwise, zero gathers.
   Offsets are static per problem.
 * ``BatchedELL`` — padded fixed-width rows (values + column indices); SpMV is
   a take_along_axis gather + reduction. General fallback.
-* ``BatchedDense`` — explicit dense blocks; SpMV is an MXU matmul. Used for
+* ``BatchedDense`` — explicit dense blocks; SpMV is a batched matmul. Used for
   small subdomains where nnz/n^2 is not tiny, and for factorizations.
 
 ``pack_local_matrices`` builds the best format from a list of per-subdomain
@@ -62,9 +62,8 @@ class BatchedDIA:
         default=None, metadata=dict(static=True))
     # pre-split canvas-shaped value planes ((S, H, W) each, in the
     # SpMM-path dtype). Slicing the packed (S, ndiag, n) buffer *inside*
-    # a jitted solve materializes per-plane copies every scan step when
-    # the operator state crosses the jit boundary as an argument —
-    # measured 472 us vs 86 us per GMV at 2048^2/16 (PERF.md round 3).
+    # a jitted solve can materialize per-plane copies every scan step when
+    # the operator state crosses the jit boundary as an argument.
     # Built by Schwarz._try_canvas_annotate alongside canvas_hw.
     values_planes: Optional[Tuple[jax.Array, ...]] = None
 
@@ -83,22 +82,13 @@ class BatchedELL:
     values: jax.Array                     # (S, n_max, width)
     cols: jax.Array                       # (S, n_max, width) int32
     n_max: int = dataclasses.field(metadata=dict(static=True))
-    # optional windowed band-ELL payload (ops/pallas_ell.annotate_windowed):
-    # the TPU-native unstructured SpMV — in-kernel lane gathers over
-    # VMEM-resident x windows of a band-ordered numbering. None on CPU or
-    # when the numbering is not banded.
-    windowed: Optional[object] = None
 
     @property
     def S(self) -> int:
         return self.values.shape[0]
 
     def astype(self, dtype) -> "BatchedELL":
-        new = dataclasses.replace(self, values=self.values.astype(dtype))
-        if self.windowed is not None:
-            new = dataclasses.replace(new, windowed=dataclasses.replace(
-                self.windowed, vals=self.windowed.vals.astype(dtype)))
-        return new
+        return dataclasses.replace(self, values=self.values.astype(dtype))
 
 
 @jax.tree_util.register_dataclass
@@ -137,7 +127,7 @@ def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
     """Pack per-subdomain CSR matrices into a batched device format.
 
     fmt in {"auto", "dia", "ell", "dense"}. Symmetric-stored inputs are
-    expanded to full storage first (TPU formats are row-complete; the
+    expanded to full storage first (device formats are row-complete; the
     reference instead branches on `sym_` in every kernel).
     """
     S = len(mats)

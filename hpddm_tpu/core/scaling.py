@@ -1,6 +1,6 @@
 """Symmetric Jacobi (diagonal) scaling of a decomposed system.
 
-The TPU backend has no f64 (CLAUDE.md): at high coefficient contrast the
+In f32 (the GPU's working dtype): at high coefficient contrast the
 local matrices reach cond ~ contrast x grid-cond, and a single-precision
 factorization of such a block is meaningless (relative error ~ cond * eps
 ~ 1), so one-level RAS stalls regardless of the local solver. The

@@ -32,7 +32,7 @@ def is_complex(dtype) -> bool:
 def downscaled(dtype) -> jnp.dtype:
     """Next-lower precision (coarse-level storage under mixed precision).
 
-    f64 -> f32, f32 -> bf16, c128 -> c64, c64 -> c64 (no complex-bf16 on TPU).
+    f64 -> f32, f32 -> bf16, c128 -> c64, c64 -> c64 (there is no complex bf16).
     """
     dtype = jnp.dtype(dtype)
     table = {

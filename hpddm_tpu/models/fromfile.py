@@ -212,9 +212,8 @@ def rcm_localize(out: "FromFileGenerated") -> None:
     """Permute every subdomain's local numbering to reverse Cuthill-McKee
     order, in place.  Mapping lists keep their (global-id-sorted) order —
     only the local index values change — so neighbor alignment holds.
-    The banded local numbering enables the windowed lane-gather SpMV
-    (ops/pallas_ell.py) and near-identity slot maps in the RCM banded
-    factorization on TPU backends."""
+    The banded local numbering gives near-identity slot maps in the RCM
+    banded factorization."""
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
     S = len(out.mats)

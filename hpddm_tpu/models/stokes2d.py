@@ -5,7 +5,7 @@ The reference's PCHPDDM front-end supports *Schur-complement
 preconditioning for saddle-point problems* (interface/petsc/pc/
 pchpddm.cxx:21, PCHPDDMSchurPreTypes): the velocity block is solved by
 the DD preconditioner and the pressure Schur complement S = B A^-1 B^T
-is preconditioned spectrally. This model provides the TPU-native
+is preconditioned spectrally. This model provides the native
 equivalent workload: lid-driven-cavity Stokes on a marker-and-cell
 (staggered) grid,
 

@@ -3,7 +3,7 @@
 The reference's algebraic pipeline (schwarzFromFile, examples/
 generateFromFile.cpp:63-141) partitions *whatever matrix it is given*;
 its csrmv is sparsity-agnostic at full speed (HPDDM_wrapper.hpp:617-680).
-This module supplies the matching in-tree workload for the TPU framework:
+This module supplies the matching in-tree workload for this framework:
 a perturbed-Delaunay P1 finite-element Laplacian with no grid structure
 whatsoever — no DIA offsets, no canvas, every row's stencil different —
 partitioned by ``partition_kway`` and decomposed algebraically.
@@ -167,8 +167,7 @@ def generate(S: int, nx: int, ny: Optional[int] = None, overlap: int = 1,
 
     rcm_local (default True): reverse Cuthill-McKee order each subdomain's
     local dofs.  Neighbor mapping alignment is unaffected (lists stay
-    sorted by global id); the banded local numbering is what enables both
-    the windowed lane-gather SpMV (ops/pallas_ell.py) and near-identity
+    sorted by global id); the banded local numbering gives near-identity
     slot maps in the RCM banded factorization."""
     ny = ny or nx
     pts, tris, boundary = delaunay_mesh(nx, ny, jitter=jitter,

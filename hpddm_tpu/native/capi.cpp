@@ -1,7 +1,7 @@
-// Exportable C ABI for the TPU runtime — the analogue of the reference's
+// Exportable C ABI for the JAX runtime — the analogue of the reference's
 // interface/HPDDM.h:66-123 (HpddmOption*/HpddmMatrixCSR*/HpddmSubdomain*/
 // HpddmSchwarz*/HpddmSolve).  The numerics run in the embedded CPython
-// interpreter (JAX owns the TPU); this shim is the stable C surface: it
+// interpreter (JAX owns the device); this shim is the stable C surface: it
 // forwards raw pointers to hpddm_tpu.capi_host, which wraps them as
 // zero-copy numpy views.  K = double on this side of the boundary; the
 // device dtype follows the backend.

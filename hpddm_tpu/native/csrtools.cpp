@@ -2,7 +2,7 @@
 //
 // The reference is a header-only C++ library whose host-side machinery
 // (CSR parsing/assembly, neighbor resolution, format conversion) runs as
-// compiled code; this file provides the same for the TPU framework's
+// compiled code; this file provides the same for this framework's
 // setup path, exposed through a C ABI consumed via ctypes
 // (hpddm_tpu/native/__init__.py). The JAX/XLA device path is unaffected —
 // these are the O(nnz) host loops that are too slow in pure Python:

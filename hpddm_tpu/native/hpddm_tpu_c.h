@@ -1,6 +1,6 @@
 /* Exportable C ABI for the hpddm_tpu runtime — analogue of the
  * reference's interface/HPDDM.h:66-123.  K = double at this boundary;
- * the device computes in the backend dtype (f32 on TPU).
+ * the device computes in the backend dtype (f32 on the GPU).
  *
  * Usage:
  *   HpddmTpuInit();                       // boots embedded CPython + JAX

@@ -2,7 +2,7 @@
 
 The reference's local solves are sparse direct factorizations (MUMPS,
 PARDISO, ... — SURVEY §2.1 "MUMPS/PARDISO/PaStiX/SuiteSparse
-interfaces"). The TPU stand-ins so far are batched *dense* factors
+interfaces"). The stand-ins so far are batched *dense* factors
 (O(n^2) memory, caps local sizes at ~10k dofs), the constant-coefficient
 DST fast solver (exact only for separable operators), and inexact
 Chebyshev. This module adds the missing *exact + scalable* point for
@@ -17,32 +17,30 @@ sweeps. Non-diagonal adjacent-row coupling (Q1/H8 *elasticity* node
 blocks, 9-point corner stencils) is auto-detected and handled with
 dense (wx, wx) coupling blocks — same recursion with matmul couplings,
 3x the coupling storage. The solve stays two lax.scan
-sweeps of batched (wx, wx) x (wx, mu) matmuls — MXU work, exact for
+sweeps of batched (wx, wx) x (wx, mu) matmuls — exact for
 *heterogeneous* coefficients where the DST solver is only spectrally
 close.
 
-Factorization (round 4): two paths.
+Factorization: two paths.
 
-* ``method="device"`` (default on TPU): the raw blocks are extracted
+* ``method="device"`` (default where f32 is the working dtype, i.e. on
+  the GPU): the raw blocks are extracted
   vectorized on host (one fancy-index scatter per subdomain — no scipy
   ``todense`` loops), shipped once (f32), and the Schur recursion runs
-  *on device* as a ``lax.scan`` of batched MXU inversions, each polished
+  *on device* as a ``lax.scan`` of batched inversions, each polished
   by ``newton`` steps of X <- X (2I - A X) at ``Precision.HIGHEST``.
-  This kills the two dominant flagship setup costs (PERF.md round 3):
-  the ~60 s host-f64 recursion and the 17-97 s disk-bound 1.1 GB npz
-  factor cache round-trip (the device path does not touch the cache —
-  recomputing is faster than any disk load).
+  It avoids the host-f64 recursion and the disk round-trip of the npz
+  factor cache (the device path does not touch the cache).
 * ``method="host"`` (default on CPU, where x64 is available): the
   recursion runs on the host in float64 and is rounded to the device
-  dtype (TPU has no f64; see CLAUDE.md), with the content-keyed factor
-  cache.
+  dtype, with the content-keyed factor cache.
 
 ``rows_per_block=r`` groups r grid rows per elimination block: the
-inter-block coupling stays confined to one row of lanes (the corner), so
+inter-block coupling stays confined to one row of the block (the corner), so
 the recursion only corrects the top-left (wx, wx) corner with the
 previous factor's bottom-right corner. The sweeps shrink to wy/r steps
 of (r*wx)-wide matmuls — fewer sequential latency-bound scan steps,
-more MXU work per step — at r x the factor memory.
+more work per step — at r x the factor memory.
 
 Memory: (S, wy/r, r*wx, r*wx) inverse factors — 66k-dof subdomains
 (256 x 256, r=1) at S=16 cost ~1 GB in f32 where dense inverses would
@@ -174,12 +172,12 @@ def _extract_blocks(mats, boxes, n_max, slot_maps, r, out_dtype=np.float64):
     scipy ``todense`` loops (O(nbk) scipy slices each) — the extraction
     is O(nnz) numpy.  Returns ``(D, cl, cu, idx_fwd, msk_fwd, idx_inv,
     msk_inv, dense_mode, nbk, L, wx_max)`` with D the *raw* (uninverted)
-    elimination blocks, identity on padded/hole lanes."""
+    elimination blocks, identity on padded/hole slots."""
     S = len(boxes)
     wy_hi = max(j1 - j0 for (_, _, j0, j1) in boxes)
     wx_max = max(i1 - i0 for (i0, i1, _, _) in boxes)
     nbk = -(-wy_hi // r)                 # ceil: block rows
-    L = r * wx_max                       # lanes per block
+    L = r * wx_max                       # slots per block
 
     entries = []
     dense_mode = False
@@ -236,10 +234,10 @@ def _extract_blocks(mats, boxes, n_max, slot_maps, r, out_dtype=np.float64):
             ku = mu_ & (gx == hx)
             np.add.at(cl[:, s], (jr[kl], gx[kl]), data[kl])
             np.add.at(cu[:, s], (jc[ku], gx[ku]), data[ku])
-        # identity diagonal on inactive lanes (box padding + hole slots)
+        # identity diagonal on inactive slots (box padding + holes)
         n = wy * wx
         eff = np.arange(n) if slots is None else slots
-        canvas = (eff // wx) * wx_max + (eff % wx)   # block-lane flat index
+        canvas = (eff // wx) * wx_max + (eff % wx)   # block-slot flat index
         active = np.zeros(nbk * L, dtype=bool)
         active[canvas] = True
         inact = np.nonzero(~active)[0]
@@ -258,7 +256,7 @@ def _schur_host(D, cl, cu, dense_mode, wx_max):
     Inversions *batched over subdomains* (threaded LAPACK: ~4x faster
     than per-subdomain loops); cl/cu are zero beyond each subdomain's
     true wx, so the batched corner correction is a no-op on padded
-    lanes."""
+    slots."""
     L = D.shape[-1]
     lo = L - wx_max
     prev = np.linalg.inv(D[0])
@@ -283,9 +281,9 @@ def _schur_device_chain(D, cl, cu, *, dense_mode, newton, wx_max):
     Consecutive Schur blocks differ by a contraction (D_{j+1} - D_j =
     -cl (X_j - X_{j-1}) cu for interior rows), so the previous block's
     inverse is a convergent Newton seed for the next one: X <- X (2I - A X)
-    quadratically at ~2 batched MXU matmuls per step — no LU / triangular
-    solves anywhere in the scan (TPU LU is latency-bound at these sizes;
-    the matmuls ride the MXU at full tilt). Block 0 takes one real
+    quadratically at ~2 batched matmuls per step — no LU / triangular
+    solves anywhere in the scan (batched LU is latency-bound at these
+    sizes; matmuls are not). Block 0 takes one real
     batched inverse outside the scan. ``newton`` here is the chained step
     count (needs ~6: the first blocks start ~0.3 away in residual norm).
     """
@@ -368,13 +366,13 @@ def _chain_residual(Dinv, D, cl, cu, *, dense_mode, wx_max):
 @functools.partial(jax.jit,
                    static_argnames=("dense_mode", "newton", "wx_max"))
 def _schur_device(D, cl, cu, *, dense_mode, newton, wx_max):
-    """On-device Schur recursion: lax.scan of batched MXU inversions.
+    """On-device Schur recursion: lax.scan of batched inversions.
 
-    Working precision is the device dtype (f32 on TPU).  The whole
+    Working precision is the device dtype (f32 on the GPU).  The whole
     recursion is traced under ``default_matmul_precision("float32")`` —
     without it, ``jnp.linalg.inv``'s *internal* triangular solves/matmuls
-    run at the TPU default (bf16 passes) and silently degrade the factors
-    (measured: 57 vs 23 outer iterations at the 1024^2 flagship).  Each
+    may run at a reduced default precision (TF32 on the GPU) and degrade
+    the factors.  Each
     LU inverse is additionally polished with ``newton`` steps of
     X <- X + X (I - A X); the LDU telescoping is self-consistent (the
     product of the stored factors reconstructs the original blocks for
@@ -433,7 +431,8 @@ def build_banded_solver(mats: Sequence, boxes: Sequence[Tuple[int, int, int, int
     method: "device" runs the Schur recursion on the accelerator (module
     doc; no disk cache — recomputing beats loading), "host" in f64 on the
     host with the content-keyed factor cache, "auto" (default) picks
-    device on TPU and host on CPU.  HPDDM_TPU_BANDED_FACTOR overrides;
+    device when ``dtype`` is the device's f32 working dtype (GPU runs)
+    and host otherwise (f64 CPU runs).  HPDDM_TPU_BANDED_FACTOR overrides;
     HPDDM_TPU_BANDED_NEWTON sets the device-path polish steps (default 1).
     """
     import os
@@ -443,8 +442,9 @@ def build_banded_solver(mats: Sequence, boxes: Sequence[Tuple[int, int, int, int
     if method not in ("auto", "host", "device"):
         raise ValueError(f"unknown banded factor method {method!r}")
     if method == "auto":
-        method = "device" if (jax.default_backend() != "cpu"
-                              and np.dtype(dtype) == np.float32) else "host"
+        from hpddm_tpu.device import working_dtype
+        method = "device" if (np.dtype(dtype) == np.float32
+                              and working_dtype() == np.float32) else "host"
 
     if method == "device":
         npdt = np.dtype(dtype)
@@ -554,10 +554,11 @@ def build_banded_solver_rcm(mats: Sequence, n_max: int, dtype=jnp.float32,
     existing slot gathers (``idx_fwd``/``idx_inv``), so ``solve`` takes and
     returns vectors in the caller's local numbering at no extra cost.
 
-    This is the TPU stand-in for the reference's sparse direct local
+    This is the stand-in for the reference's sparse direct local
     factorizations on unstructured subdomains (SURVEY §2.1 MUMPS/PARDISO
     rows; fill-reducing ordering there, band-reducing ordering here —
-    band solves are scan+MXU-shaped, nested-dissection solves are not).
+    band solves are scan+matmul-shaped, nested-dissection solves are
+    not).
 
     wx: optional bandwidth override (>= max RCM bandwidth; rounded up to 8).
     Returns (solver, bandwidths) — bandwidths per subdomain, for logging.

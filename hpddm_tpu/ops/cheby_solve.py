@@ -2,10 +2,10 @@
 
 The reference's SUBDOMAIN solvers are exact sparse direct factorizations
 (MUMPS & co. — e.g. MumpsSub::numfact/solve, include/HPDDM_MUMPS.hpp:
-229-313). On TPU, batched dense factors cap local sizes at ~10k dofs
+229-313). Batched dense factors cap local sizes at ~10k dofs
 (O(n^2) memory) and the DST fast solver (ops/fft_solve.py) is exact only
 for the constant-coefficient stencil. For *large heterogeneous* grid
-subdomains the TPU-native answer is an inexact local solve:
+subdomains the native answer is an inexact local solve:
 
     k steps of preconditioned Chebyshev iteration on the local matrix,
     preconditioned by the DST solve (spectrally equivalent for variable-
@@ -15,7 +15,7 @@ subdomains the TPU-native answer is an inexact local solve:
 Chebyshev with *fixed* coefficients is a fixed linear operator, so the
 resulting RAS/ORAS preconditioner stays linear — plain (non-flexible)
 GMRES remains valid, unlike inner-Krylov local solves. Zero factorization
-memory; every step is one SpMV + one DST solve (VPU/MXU-bound).
+memory; every step is one SpMV + one DST solve.
 
 Per-subdomain spectral bounds of M^-1 A are estimated at setup by batched
 power iteration (lmax) and shifted power iteration (lmin), with safety

@@ -1,18 +1,20 @@
 """Double-word (paired-f32) arithmetic for on-device iterative refinement.
 
-The TPU backend has no f64; ``solvers/refine.py`` gets f64-grade residuals
+With an f32 device solve, ``solvers/refine.py`` gets f64-grade residuals
 by round-tripping to the host every pass. This module removes the
 round-trip: the solution is carried as an unevaluated pair ``x = hi + lo``
 of f32 arrays (~48 mantissa bits) and the residual ``r = b - A x`` is
 computed entirely on device with error-free transformations (Knuth 2Sum,
 Dekker split/2Prod — classical double-word a.k.a. "double-double"
 arithmetic, Joldes/Muller/Popescu 2017). All operations are elementwise
-VPU ops — no MXU involvement, so the f32 arithmetic is true IEEE
-round-to-nearest and the transforms are exact.
+— no matrix products, so the f32 arithmetic is IEEE round-to-nearest and
+the transforms are exact as long as the compiler does not contract them
+into fused multiply-adds.
 
 Analogue in the reference: HPDDM's mixed precision only goes *down*
 (coarse level in ``downscaled_type<K>``, HPDDM_coarse_operator.hpp:73);
-the TPU needs the opposite direction, residuals *above* working precision.
+an f32 device solve needs the opposite direction, residuals *above*
+working precision.
 """
 
 from __future__ import annotations
@@ -146,7 +148,7 @@ def spmm_ell_dw(A, x: Pair) -> Pair:
 
 def spmm_dw(A, x: Pair) -> Pair:
     """Dispatch on format (DIA/ELL; dense local blocks have no error-free
-    MXU product — callers fall back to host refinement there)."""
+    matrix product — callers fall back to host refinement there)."""
     from hpddm_tpu.core.formats import BatchedDIA, BatchedELL
     if isinstance(A, BatchedDIA):
         return spmm_dia_dw(A, x)

@@ -2,7 +2,7 @@
 
 The reference's local solves are O(n^1.5)-O(n^2) sparse direct
 factorizations (MUMPS & co.); batched dense inverses (ops/local_solve.py)
-cap local sizes at ~10k dofs. For *structured grid* subdomains, the TPU
+cap local sizes at ~10k dofs. For *structured grid* subdomains, the
 alternative is a fast Poisson solver: the local 5-point operator with
 Dirichlet-type artificial boundaries diagonalizes in the 2D DST-I basis,
 so a local solve is two batched FFTs + an eigenvalue divide —
@@ -74,7 +74,7 @@ class FFTLocalSolver:
 class DSTMatmulSolver:
     """Per-subdomain DST-I solver as batched masked sine matmuls.
 
-    TPU-first alternative to the grouped-rFFT path: the DST-I of length
+    Alternative to the grouped-rFFT path: the DST-I of length
     w is a (symmetric) sine-matrix product, so the whole local solve is
     four batched matmuls + an eigenvalue divide — uniform static shapes
     for *every* subdomain regardless of its box size. All leaves are
@@ -82,7 +82,8 @@ class DSTMatmulSolver:
     the rest of the state (parallel/mesh.py state_pspecs) and runs under
     shard_map unchanged; the grouped FFTLocalSolver cannot (its group
     member indices are global). Matmul DSTs are O(w^3) per subdomain per
-    axis but ride the MXU, which beats FFT shuffles for moderate boxes.
+    axis but are dense matmuls, which beat FFT shuffles for moderate
+    boxes.
     """
     Uy: jax.Array         # (S, wy_max, wy_max) masked sine matrices
     Ux: jax.Array         # (S, wx_max, wx_max)
@@ -156,7 +157,7 @@ def build_fft_solver(boxes: Sequence[Tuple[int, int, int, int]],
     jEnd) on an Nx x Ny grid of [0,10]^2 (models/diffusion2d geometry).
 
     mode: "fft" (grouped rFFT, single-chip batched — lowest FLOPs for
-    large boxes), "matmul" (uniform masked sine matmuls — MXU-friendly
+    large boxes), "matmul" (uniform masked sine matmuls — batched
     and shard_map-compatible), or "auto" (matmul for boxes up to 128 a
     side, fft beyond)."""
     if mode == "auto":

@@ -3,14 +3,14 @@
 Replaces the reference's SUBDOMAIN plug-ins (MUMPS / MKL PARDISO /
 SuiteSparse / PaStiX / Dissection — e.g. ``MumpsSub::numfact/solve``,
 include/HPDDM_MUMPS.hpp:229-313): there is no external sparse direct solver
-on TPU, and subdomain problems are small (1e3-1e5 dofs), so local solves are
-*batched dense* factorizations on the MXU, vmapped over the subdomain axis.
+on the device, and subdomain problems are small (1e3-1e5 dofs), so local
+solves are *batched dense* factorizations, vmapped over the subdomain axis.
 
 Strategies (option ``-hpddm_local_solver``):
 
 * ``inv``  — explicit inverse computed once at setup; ``solve`` is a single
-  batched matmul. On TPU a matmul runs at MXU speed while triangular solves
-  serialize, so this is the fast path for the Krylov hot loop. Iteration
+  batched matmul. A matmul runs at full device rate while triangular
+  solves serialize, so this is the fast path for the Krylov hot loop. Iteration
   counts match ``lu`` to roundoff.
 * ``lu``   — LU with partial pivoting (jax.scipy lu_factor/lu_solve).
 * ``chol`` — Cholesky for SPD local matrices.

@@ -1,14 +1,14 @@
 """Batched local sparse matrix products.
 
-TPU re-design of ``Wrapper<K>::csrmv/csrmm`` (include/HPDDM_wrapper.hpp:
+Re-design of ``Wrapper<K>::csrmv/csrmm`` (include/HPDDM_wrapper.hpp:
 123-146 decl; :617-700 OpenMP fallback). CSR's per-row indirection is
 replaced by format-specialized fixed-shape programs:
 
-* DIA: shifts + fused multiply-add — pure VPU, HBM-bandwidth-bound,
-  zero gathers. The fast path for stencil matrices.
+* DIA: shifts + fused multiply-add — one elementwise fusion, bound by
+  memory bandwidth, zero gathers. The fast path for stencil matrices.
 * ELL: one take_along_axis gather + reduction over the fixed row width.
-* Dense: an MXU matmul (einsum), used when the local block is effectively
-  dense or tiny.
+* Dense: a batched matmul (einsum), used when the local block is
+  effectively dense or tiny.
 
 All operate on a batch x: (S, n_max, mu) — HPDDM's multi-RHS ``mu`` fused in
 every kernel (pseudo-block storage) comes for free here.
@@ -16,16 +16,10 @@ every kernel (pseudo-block storage) comes for free here.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from hpddm_tpu.core.formats import BatchedDIA, BatchedELL, BatchedDense
-
-# Pallas row-blocked DIA kernel on TPU backends (1.25x over the XLA shifts
-# at production sizes, PERF.md); HPDDM_TPU_NO_PALLAS=1 disables.
-_USE_PALLAS = os.environ.get("HPDDM_TPU_NO_PALLAS", "0") != "1"
 
 
 def _hot_values(A: BatchedDIA) -> jax.Array:
@@ -66,9 +60,7 @@ def dia_canvas_moves(offsets, Wd: int):
 def spmm_dia_canvas(A: BatchedDIA, x: jax.Array) -> jax.Array:
     """Canvas SpMM for grid stencils (A.canvas_hw set): values viewed as
     (S, k, H, W); the +-W diagonals become free row offsets, only the
-    +-1 lane shifts remain. 76.8 us vs 206.6 us for the row-blocked
-    Pallas kernel at 2048^2/16 (275 GNnz/s, PERF.md 2026-08-20). Requires
-    seam-safe values — the E/W couplings must vanish on the canvas row
+    +-1 column shifts remain. Requires seam-safe values — the E/W couplings must vanish on the canvas row
     seams, validated once at attach time (Schwarz.set_grid_geometry):
     the flat form reads across the seam, the canvas form reads padding."""
     H, Wd = A.canvas_hw
@@ -84,8 +76,8 @@ def spmm_dia_canvas(A: BatchedDIA, x: jax.Array) -> jax.Array:
     sym = A.canvas_sym if A.canvas_sym is not None else (None,) * k
     if A.values_planes is not None:
         # pre-split (S, H, W) planes: no in-jit slicing of the packed
-        # buffer (it materializes per-plane copies every scan step when
-        # the state is a jit argument — 472 vs 86 us GMV, PERF.md r3)
+        # buffer (it can materialize per-plane copies every scan step
+        # when the state is a jit argument)
         plane = lambda ki: A.values_planes[ki]          # noqa: E731
     else:
         vc = vals.reshape(S, k, H, Wd)
@@ -107,7 +99,7 @@ def spmm_dia_canvas(A: BatchedDIA, x: jax.Array) -> jax.Array:
                     xp[:, 1 + di: 1 + di + H, 1 + dj: 1 + dj + Wd]
         return out.reshape(S, n, 1)
     # mu > 1: batch the RHS axis ahead of the canvas dims so W stays the
-    # lane dimension
+    # minor (contiguous) dimension
     out = spmm_dia_canvas_muT(A, jnp.moveaxis(x, -1, 1))
     return jnp.moveaxis(out, 1, -1)
 
@@ -115,11 +107,10 @@ def spmm_dia_canvas(A: BatchedDIA, x: jax.Array) -> jax.Array:
 def spmm_dia_canvas_muT(A: BatchedDIA, xT: jax.Array) -> jax.Array:
     """Canvas SpMM with the RHS axis *leading*: (S, mu, n) -> (S, mu, n).
 
-    The production multi-RHS layout (round 4): callers that keep vectors
-    mu-leading (precond/schwarz.gmv's fused block path) avoid the
-    transpose round-trips entirely — the (.., W*mu) merged-minor form
-    relayouts the canvas tiles on every op (5.3 ms vs ~60 us exchange at
-    2048^2/16 mu=4)."""
+    The production multi-RHS layout: callers that keep vectors mu-leading
+    (precond/schwarz.gmv's fused block path) avoid the transpose
+    round-trips entirely — the (.., W*mu) merged-minor form relayouts the
+    canvas on every op."""
     H, Wd = A.canvas_hw
     vals = _hot_values(A)
     S, k, n = vals.shape
@@ -150,16 +141,13 @@ def spmm_dia_canvas_muT(A: BatchedDIA, xT: jax.Array) -> jax.Array:
 def spmm_dia_canvas_muT_scan(A: BatchedDIA, xT: jax.Array,
                              pair: int = 2,
                              scale=None) -> jax.Array:
-    """muT canvas SpMM as a ``lax.scan`` over RHS groups (round 5).
+    """muT canvas SpMM as a ``lax.scan`` over RHS groups.
 
-    The fused (S, mu, ...) formulation re-reads the accumulator canvas
-    once per diagonal at mu >= 3 (VERDICT r4 #5: 895 us vs ~280 ideal at
-    2048^2/16 mu=4), and a python-loop chunking is interleaved back into
-    the spilling schedule by XLA (PERF.md r4 negative result).  A scan
-    body is *sequential by semantics*, so each group of ``pair`` RHS runs
-    the roofline-speed mu<=2 pass; the diagonal values are re-read once
-    per group — 2x value traffic at mu=4 instead of 3.2x accumulator
-    spill.  ``scale``: optional (S, n) POU to fuse into the body (the
+    The fused (S, mu, ...) formulation can re-read the accumulator canvas
+    once per diagonal at mu >= 3, and a python-loop chunking is
+    interleaved back into that schedule by XLA.  A scan body is
+    *sequential by semantics*, so each group of ``pair`` RHS runs the
+    mu<=2 pass; the diagonal values are re-read once per group.  ``scale``: optional (S, n) POU to fuse into the body (the
     GMV's D-scaling — saves one full pass over y)."""
     from jax import lax
 
@@ -184,16 +172,7 @@ def spmm_dia_canvas_muT_scan(A: BatchedDIA, xT: jax.Array,
 
 
 def spmm_ell(A: BatchedELL, x: jax.Array) -> jax.Array:
-    """y[s, i, :] = sum_w vals[s, i, w] * x[s, cols[s, i, w], :].
-
-    With a ``windowed`` annotation (band-ordered numbering, TPU backend)
-    the product runs in the Pallas lane-gather kernel (ops/pallas_ell.py)
-    — the XLA take_along_axis path below is element-serial on TPU
-    (~10 ns/element, tools/exp_gather.py)."""
-    if A.windowed is not None and \
-            jax.default_backend() not in ("cpu",):
-        from hpddm_tpu.ops.pallas_ell import spmm_windowed
-        return spmm_windowed(A, x)
+    """y[s, i, :] = sum_w vals[s, i, w] * x[s, cols[s, i, w], :]."""
     # gathered: (S, n, w, mu)
     gathered = jnp.take_along_axis(x[:, :, None, :],
                                    A.cols[:, :, :, None], axis=1)
@@ -210,12 +189,6 @@ def spmm(A, x: jax.Array) -> jax.Array:
     if isinstance(A, BatchedDIA):
         if A.canvas_hw is not None:
             return spmm_dia_canvas(A, x)
-        if _USE_PALLAS and A.values_lp is None and \
-                jax.default_backend() not in ("cpu",):
-            from hpddm_tpu.ops.pallas_spmv import (pallas_dia_supported,
-                                                   spmm_dia_pallas)
-            if pallas_dia_supported(A, x):
-                return spmm_dia_pallas(A, x)
         return spmm_dia(A, x)
     if isinstance(A, BatchedELL):
         return spmm_ell(A, x)

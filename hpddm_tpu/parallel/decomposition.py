@@ -1,4 +1,4 @@
-"""Subdomain decomposition: the TPU-native replacement of ``Subdomain<K>``.
+"""Subdomain decomposition: the replacement of ``Subdomain<K>``.
 
 The reference keeps, per MPI rank, a neighbor map ``map_`` = vector of
 (rank, list-of-shared-local-indices) and implements ``exchange`` as
@@ -113,14 +113,14 @@ class Decomposition:
     if_mask: jax.Array
     ov_mask: jax.Array
     mult: jax.Array
-    # scatter-free exchange tables (TPU scatters serialize; gathers don't):
+    # scatter-free exchange tables:
     # partners[s, k, :] = flattened global slot ids (q * m_max + j) of the
     # other copies of slot (s, k); sentinel = S * m_max (a zero pad slot).
     partners: jax.Array        # (S, m_max, k_max) int32
     # inv_map[s, i] = interface slot of local dof i, sentinel m_max
     inv_map: jax.Array         # (S, n_max) int32
     is_if: jax.Array           # (S, n_max) bool
-    # interface-first renumbering (TPU fast path): local dofs are permuted
+    # interface-first renumbering (fast path): local dofs are permuted
     # so slot k lives at position k; exchange touches only x[:, :m_max].
     # perm[s, p] = original local index now at position p; iperm inverse.
     # None when the decomposition keeps the caller's numbering.
@@ -145,14 +145,10 @@ class Decomposition:
     # optional structured-grid halo plan (parallel/grid.py); when present
     # `exchange` uses the scatter-free slab path
     grid: Optional[object] = None
-    # row-level exchange plan (parallel/rowplan.py): unique sorted 128-lane
+    # row-level exchange plan (parallel/rowplan.py): unique sorted 128-wide
     # row gathers/scatters replace the element-granular ones on the general
     # path
     rowplan: Optional[object] = None
-    # Pallas static-gather exchange plan (parallel/pexchange.py): the
-    # general path's element-granular gathers/scatter as in-kernel lane
-    # gathers; single-device batched layout only
-    pexch: Optional[object] = None
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -293,7 +289,7 @@ class Decomposition:
             # interface-first renumbering: slot k -> position k, interior
             # next, pads last. The runtime exchange then touches only the
             # contiguous block x[:, :m_max] (no full-vector gathers — the
-            # TPU analogue of Schur::renumber's interior/interface split).
+            # analogue of Schur::renumber's interior/interface split).
             perm = np.zeros((S, n_max), dtype=np.int32)
             iperm = np.zeros((S, n_max), dtype=np.int32)
             for s in range(S):

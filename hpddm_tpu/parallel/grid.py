@@ -2,13 +2,12 @@
 
 The general ``exchange`` (parallel/ops.py) must handle arbitrary
 decompositions, which costs three irregular row operations per call
-(interface gather, partner-slab gather, scatter-back) — measured ~3x the
-SpMV time on TPU at production sizes (PERF.md). For 2D grid
+(interface gather, partner-slab gather, scatter-back). For 2D grid
 decompositions with *uniform* boxes (models/diffusion2d
 ``uniform_boxes=True``), the duplicated unknowns are exactly the
 box-boundary strips, so the whole reduction is expressible with static
 slices, eight S-axis row gathers (contiguous, regular), and adds —
-nothing irregular anywhere. This is the TPU-native analogue of the
+nothing irregular anywhere. This is the analogue of the
 reference's ``Subdomain::exchange`` point-to-point halo swap
 (HPDDM_subdomain.hpp:115-130) specialized the way distributed stencil
 codes do it on device meshes.
@@ -46,9 +45,8 @@ class GridPlan:
     sxw: jax.Array    # (S, 8) int32 shared width along x with that neighbor
     syw: jax.Array    # (S, 8) int32 shared width along y
     # (S, 8, S+1) one-hot of nbr: the S-axis neighbor "gather" is done as
-    # an MXU matmul — generic gathers serialize on TPU (~54 ns/elem, PERF),
-    # a (S, S+1) x (S+1, strip) matmul is ~free. S-leading so shard_map
-    # splits it alongside the subdomain axis.
+    # a (S, S+1) x (S+1, strip) matmul. S-leading so shard_map splits it
+    # alongside the subdomain axis.
     onehot: jax.Array
     H: int = dataclasses.field(metadata=dict(static=True))
     W: int = dataclasses.field(metadata=dict(static=True))
@@ -56,8 +54,7 @@ class GridPlan:
     S: int = dataclasses.field(metadata=dict(static=True))
     # regular row-major process grid (s == iy*gx + ix): neighbor selection
     # becomes a *static shift* of the (gy, gx, ...) strip tensor — no
-    # matmul, no gather (the one-hot takes measured 536 us of the 589 us
-    # exchange at 2048^2/16; PERF.md)
+    # matmul, no gather
     gx: int = dataclasses.field(default=0, metadata=dict(static=True))
     gy: int = dataclasses.field(default=0, metadata=dict(static=True))
     regular: bool = dataclasses.field(default=False,
@@ -65,8 +62,7 @@ class GridPlan:
     # static copies of sxw/syw (tuple[dir][s]): the alignment shifts are
     # decomposition constants taking only 2-3 distinct values, so the
     # realign select collapses to that many *static* shifts + masks
-    # instead of 2t+1 traced variants (each tiny op costs ~1-4 us on TPU;
-    # the op count was the unattributed exchange floor — PERF.md)
+    # instead of 2t+1 traced variants (fewer small ops per exchange)
     sxw_s: tuple = dataclasses.field(default=None,
                                      metadata=dict(static=True))
     syw_s: tuple = dataclasses.field(default=None,
@@ -172,7 +168,7 @@ def _global_row_shift(x: jax.Array, k: int, axis_name: str) -> jax.Array:
 
 def _sharded_neighbor_take(plan: "GridPlan", axis_name: str, S_loc: int):
     """Neighbor strip selection on *local* strips under shard_map: the
-    TPU analogue of the reference's point-to-point halo swap
+    analogue of the reference's point-to-point halo swap
     (HPDDM_subdomain.hpp:115-130). On a regular row-major process grid the
     8 neighbor directions are static flat shifts dy*gx + dx of the S axis,
     each resolved with two ppermutes (no all_gather: per-device comm is
@@ -199,9 +195,7 @@ def _shift_select(vals: jax.Array, k: jax.Array, axis: int,
     """out[s, ..., i, ...] = vals[s, ..., i + k[s], ...], zero outside.
 
     k: (S,) per-subdomain shift in [-t, t]. Computed as a select over the
-    2t+1 statically-shifted variants — pure VPU, no gathers (a
-    take_along_axis here serializes per element on TPU and dominated the
-    whole exchange; PERF.md)."""
+    2t+1 statically-shifted variants — elementwise, no gathers."""
     variants = jnp.stack([_static_shift(vals, v, axis)
                           for v in range(-t, t + 1)])      # (2t+1, S, ...)
     sel = (k + t)[None, :] == jnp.arange(2 * t + 1)[:, None]
@@ -233,13 +227,12 @@ def _shift_select_static(vals: jax.Array, k_np: np.ndarray, axis: int,
 
 import os
 
-# composition of the final canvas update (A/B-switchable for measurement):
-# "hybrid" = row-band concat on the sublane axis + lane-padded E/W adds
-#   fused into the mid pass — measured 40.2 us at 2048^2/16 (PERF.md
-#   2026-08-21, round 3);
-# "band" = row-band concat with *column* concats for E/W — the 2-lane
-#   offset column concat forces a full-canvas lane relayout (67-101 us);
-# "pad" = four zero-padded full-canvas strip adds (50-56 us).
+# composition of the final canvas update (A/B-switchable for measurement;
+# none of the three is measured on the GPU yet, ROADMAP D2):
+# "hybrid" = row-band concat + column-padded E/W adds fused into the mid
+#   pass;
+# "band" = row-band concat with *column* concats for E/W;
+# "pad" = four zero-padded full-canvas strip adds.
 _COMPOSE = os.environ.get("HPDDM_TPU_GRID_COMPOSE", "hybrid")
 
 
@@ -248,20 +241,17 @@ def grid_exchange(plan: GridPlan, x: jax.Array,
     """Sum-reduce duplicated unknowns on a uniform grid decomposition.
 
     Runs on a (S, H, W*mu) canvas: merging the RHS axis into the minor
-    dimension keeps the vector lanes running across W — the rank-4
-    (S, H, W, mu) form puts the size-mu axis minor, and at mu=1 every
-    canvas op then uses 1 of 128 lanes (measured: the whole 0.5 ms
-    exchange floor at 2048^2/16; takes/selects are ~free)."""
+    dimension keeps the contiguous axis running across W — the rank-4
+    (S, H, W, mu) form puts the size-mu axis minor."""
     if os.environ.get("HPDDM_TPU_GRID_LAYOUT") == "4d":
         return _grid_exchange_4d(plan, x, axis_name)
     S_loc, n_max, mu = x.shape
     if mu > 1 and os.environ.get("HPDDM_TPU_GRID_MU") != "merged":
-        # multi-RHS (round 4): vmap the single-RHS exchange over a
-        # *leading* mu axis. The merged-minor form below keeps mu in the
-        # lane dimension, where every canvas op relayouts the (.., W*mu)
-        # tiles — measured 5.3 ms vs ~60 us at 2048^2/16 mu=4 (88x); the
-        # leading-batch form keeps W minor and costs mu x the mu=1 ops
-        # plus two cheap leading-axis transposes (~0.4 ms total).
+        # multi-RHS: vmap the single-RHS exchange over a *leading* mu
+        # axis. The merged-minor form below keeps mu in the minor
+        # dimension, where every canvas op relayouts the (.., W*mu)
+        # canvas; the leading-batch form keeps W minor and costs mu x
+        # the mu=1 ops plus two leading-axis transposes.
         xT = jnp.moveaxis(x, 2, 0)                      # (mu, S, n)
         outT = jax.vmap(
             lambda v: grid_exchange(plan, v[:, :, None], axis_name)[:, :, 0]
@@ -345,8 +335,8 @@ def grid_exchange(plan: GridPlan, x: jax.Array,
               .at[:, :, :tm].add(nw + w[:, :t, :]))
         s = (s.at[:, :, Wm - tm:].add(se + e[:, H - t:, :])
               .at[:, :, :tm].add(sw + w[:, H - t:, :]))
-        # mid rows: lane-padded E/W adds fuse into one elementwise pass
-        # (a column concat here would lane-relayout the whole canvas)
+        # mid rows: column-padded E/W adds fuse into one elementwise pass
+        # (a column concat here would relayout the whole canvas)
         mid = (x4[:, t:H - t, :]
                + jnp.pad(w[:, t:H - t, :], [(0, 0), (0, 0), (0, Wm - tm)])
                + jnp.pad(e[:, t:H - t, :], [(0, 0), (0, 0), (Wm - tm, 0)]))
@@ -382,7 +372,7 @@ def grid_exchange_muT(plan: GridPlan, xT: jax.Array,
                       axis_name: Optional[str] = None) -> jax.Array:
     """Multi-RHS grid exchange with the RHS axis leading:
     (S, mu, n) -> (S, mu, n); each RHS runs the single-RHS exchange
-    (vmapped over axis 1 — canvas W stays the lane dimension)."""
+    (vmapped over axis 1 — canvas W stays the minor dimension)."""
     return jax.vmap(
         lambda v: grid_exchange(plan, v[:, :, None], axis_name)[:, :, 0],
         in_axes=1, out_axes=1)(xT)
@@ -390,12 +380,11 @@ def grid_exchange_muT(plan: GridPlan, xT: jax.Array,
 
 def grid_exchange_muT_scan(plan: GridPlan, xT: jax.Array,
                            axis_name: Optional[str] = None) -> jax.Array:
-    """muT grid exchange as a ``lax.scan`` over single RHS (round 5).
+    """muT grid exchange as a ``lax.scan`` over single RHS.
 
-    The vmapped form above batches every canvas op over a leading mu axis;
-    measured at 2048^2/16 the per-RHS cost grows 44 -> 128 -> 317 us for
-    mu = 1, 2, 4 (XLA re-tiles the batched shift/select chains).  A scan
-    body is the plain mu=1 exchange at its ~44 us floor; the carry is
+    The vmapped form above batches every canvas op over a leading mu axis,
+    and XLA may re-tile the batched shift/select chains so the per-RHS
+    cost grows with mu.  A scan body is the plain mu=1 exchange; the carry is
     updated in place (donated buffer), so the only extra traffic is the
     unavoidable read+write of x itself."""
     S, mu, n = xT.shape
@@ -425,7 +414,7 @@ def _shift_select_mu(vals: jax.Array, k: jax.Array, axis: int, t: int,
 
 def _grid_exchange_4d(plan: GridPlan, x: jax.Array,
                       axis_name: Optional[str] = None) -> jax.Array:
-    """Round-1 rank-4 formulation (A/B: HPDDM_TPU_GRID_LAYOUT=4d)."""
+    """Rank-4 formulation (A/B: HPDDM_TPU_GRID_LAYOUT=4d)."""
     S_loc, n_max, mu = x.shape
     H, W, t = plan.H, plan.W, plan.t
     x4 = x[:, : H * W, :].reshape(S_loc, H, W, mu)
@@ -467,7 +456,7 @@ def _grid_exchange_4d(plan: GridPlan, x: jax.Array,
 
     # realign selects: the shifts are decomposition constants, so when the
     # shard covers the full plan they collapse to 2-3 *static* shifts with
-    # static masks (op count was the exchange floor — PERF.md); sharded
+    # static masks (fewer small ops); sharded
     # slices keep the traced 2t+1-variant select
     use_static = plan.sxw_s is not None and S_loc == plan.S
     if use_static:

@@ -39,7 +39,7 @@ def make_mesh2d(shape, axes=("host", "sub")) -> Mesh:
     tuple) to every runtime function / sharded_solve.  Collectives then
     reduce over the product; neighbor ppermute halos ride the fast inner
     axis with carry hops on the outer one (parallel/ops._ppermute_shift)
-    — the TPU analogue of the reference's intra-/inter-node comm split
+    — the analogue of the reference's intra-/inter-node comm split
     (HPDDM_coarse_operator_impl.hpp:31-134 topology-aware gathers)."""
     nh, ns = shape
     devs = jax.devices()

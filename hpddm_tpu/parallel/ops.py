@@ -15,7 +15,8 @@ weight by the partition of unity so overlapping dofs are not double-counted
 
 All functions take ``axis_name=None`` (single-device batch: the whole S axis
 is local, no collective needed) or the mesh axis name used inside
-``shard_map`` (the S axis is split across devices; ``psum`` rides ICI).
+``shard_map`` (the S axis is split across devices; ``psum`` rides the
+device interconnect).
 """
 
 from __future__ import annotations
@@ -28,11 +29,9 @@ import jax.numpy as jnp
 from jax import lax
 
 # Row-level exchange plan (parallel/rowplan.py) on the general path,
-# opt-in via HPDDM_TPU_ROWPLAN=1. Measured on a v5e at 2048^2/16: the
-# 128-lane row-granular gathers/scatters are ~3x *slower* than the
-# element scatter (12.0 vs 4.2 ms) — XLA:TPU does not lower unique sorted
-# row scatters to the hoped-for dynamic-slice loop. Kept for A/B testing
-# and for backends where row granularity wins.
+# opt-in via HPDDM_TPU_ROWPLAN=1: 128-wide row-granular gathers/scatters
+# instead of element-granular ones. Not measured on the GPU; kept for A/B
+# testing (ROADMAP D2).
 _ROWPLAN_ENV = os.environ.get("HPDDM_TPU_ROWPLAN", "")
 
 
@@ -99,8 +98,8 @@ def _ppermute_shift(x: jax.Array, d: int, axis_name) -> jax.Array:
     On a hierarchical mesh (tuple ``axis_name``, e.g. ``("host", "sub")``)
     the shift is over the *linearized* index p = h * Ps + s: one ppermute
     along the fast inner axis plus carry resolution along the outer
-    axis/axes — the inner hop rides ICI while only boundary shards
-    genuinely need the outer (DCN-tier) hop.  For any d the carry takes
+    axis/axes — the inner hop stays on the fast tier while only boundary
+    shards genuinely need the outer hop.  For any d the carry takes
     exactly two consecutive values (s + d mod Ps spans < 2 Ps), so two
     outer shifts and one per-shard select suffice."""
     if d == 0:
@@ -132,8 +131,7 @@ def _interface_reduce(dec: Decomposition, vals: jax.Array,
 
     vals: (S_loc, m_max, mu) gathered interface values (zero on invalid
     slots). Each slot's class members are precomputed (dec.partners), so
-    the reduction is self + k_max partner *gathers* — TPU scatters
-    serialize, gathers don't.
+    the reduction is self + k_max partner *gathers*, no scatter.
 
     Sharded: partners live only on the statically-known neighbor devices
     (dec.sub_shifts), so the slab to gather from is the concatenation of
@@ -207,13 +205,12 @@ def exchange(dec: Decomposition, x: jax.Array,
             and x.shape[0] * dec.m_max == dec.rowplan.n_slots
             and _rowplan_enabled()):
         # general path, row-level plan (full batch only): unique sorted
-        # 128-lane row gathers/scatters instead of element-granular ones
+        # 128-wide row gathers/scatters instead of element-granular ones
         from hpddm_tpu.parallel import rowplan as rp
         plan = dec.rowplan
         rows, xf = rp.gather_rows(plan, x)
         # barriers: keep the row gather / slot gather / row scatter as
-        # separate XLA fusions — fusing the gather chains trips the TPU
-        # fusion emitter (kSublaneGather check crash) at production sizes
+        # separate XLA fusions
         rows, xf = lax.optimization_barrier((rows, xf))
         vals = rp.slot_values(plan, rows, x.shape[0], dec.m_max)
         vals = lax.optimization_barrier(vals)
@@ -221,16 +218,7 @@ def exchange(dec: Decomposition, x: jax.Array,
         summed = lax.optimization_barrier(summed)
         return rp.scatter_rows(plan, xf, rows, summed, x.shape[0],
                                dec.n_max)
-    if dec.pexch is not None and axis_name is None and \
-            jax.default_backend() not in ("cpu",):
-        # Pallas static-gather exchange (parallel/pexchange.py): the three
-        # element-granular index ops below run ~10 ns/element on TPU; the
-        # kernel runs them as in-register lane gathers (round 5)
-        from hpddm_tpu.parallel.pexchange import pexchange
-        return pexchange(dec.pexch, x)
-    # general path (caller numbering kept): scatter the summed slots back.
-    # (A full-vector gather through an inverse map measures ~14x slower
-    # than this scatter on TPU; the renumbered layout above avoids both.)
+    # general path (caller numbering kept): scatter the summed slots back
     vals = jnp.take_along_axis(x, dec.if_idx[:, :, None], axis=1)
     vals = jnp.where(dec.if_mask[:, :, None], vals, 0)
     summed = _interface_reduce(dec, vals, axis_name)

@@ -1,24 +1,23 @@
-"""Row-level exchange plan: lane-width gathers/scatters for the general path.
+"""Row-level exchange plan: 128-wide row gathers/scatters for the general path.
 
 The general ``exchange`` (arbitrary decompositions, caller numbering) needs
 two irregular memory ops per call: gather the interface values out of
 x (S, n_max, mu) and scatter the merged values back. XLA lowers both at
-*element* granularity (~54 ns/element on TPU — PERF.md), which dominates GMV
-at production sizes.
+*element* granularity.
 
 Interface dofs cluster into contiguous runs (grid lines, mesh surfaces), so
-the set of 128-lane vector rows they touch is tiny. This plan precomputes
+the set of 128-wide rows they touch is tiny. This plan precomputes
 (host, setup time) the touched rows of the flattened (S*n_max -> R x 128)
-view and a static lane->slot map; at runtime both directions become
+view and a static column->slot map; at runtime both directions become
 
     rows = x_view[touched]                  # R_t unique row gather
     vals = rows.flat[slot_pos]              # small-array gather
     ...partner reduction (parallel/ops.py)...
-    new  = where(lane_has_slot, merged.flat[slot_of], rows)
+    new  = where(col_has_slot, merged.flat[slot_of], rows)
     x_view = x_view.at[touched].set(new)    # R_t unique, sorted row scatter
 
-i.e. unique-index, sorted, row-granular memory ops — the form XLA lowers to
-fast dynamic-slice loops — instead of 65k-element scatters.
+i.e. unique-index, sorted, row-granular memory ops instead of
+element scatters. Opt-in (HPDDM_TPU_ROWPLAN=1); not measured on the GPU.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import numpy as np
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class RowPlan:
-    """Static plan mapping interface slots to 128-lane rows of x.flat."""
+    """Static plan mapping interface slots to 128-wide rows of x.flat."""
     touched: jax.Array    # (R_t,) int32 sorted unique row ids of (R, 128)
     slot_of: jax.Array    # (R_t, 128) int32 flat slot (s*m_max+k) per lane;
     #                       sentinel = S*m_max where no slot writes the lane
@@ -98,14 +97,13 @@ def scatter_rows(plan: RowPlan, xf: jax.Array, rows: jax.Array,
     """Write merged slot values back; returns the updated (S, n_max, mu).
 
     xf, rows: from ``gather_rows``; merged: (S, m_max, mu) in slot order.
-    Lanes without a slot keep their x value.
+    Columns without a slot keep their x value.
     """
     mu = xf.shape[-1]
     mflat = merged.reshape(-1, mu)
     mflat = jnp.concatenate([mflat, jnp.zeros((1, mu), mflat.dtype)])
-    # per-RHS 2-D gathers (K,)[(R_t,128)] keep XLA:TPU's fusion emitter on
-    # its supported gather form; the 3-D (K,mu)[(R_t,128)] variant fused
-    # with the row scatter trips a kSublaneGather check
+    # per-RHS 2-D gathers (K,)[(R_t,128)] keep the gather in its simplest
+    # form
     upd = jnp.stack([mflat[:, c][plan.slot_of] for c in range(mu)], axis=-1)
     keep = (plan.slot_of == plan.n_slots)[:, :, None]
     new_rows = jnp.where(keep, rows, upd)

@@ -1,6 +1,6 @@
 """Dense Schwarz variant with user-supplied global operator.
 
-TPU re-design of ``Dense<S, K> : Schwarz`` (include/HPDDM_dense.hpp:40-214),
+Re-design of ``Dense<S, K> : Schwarz`` (include/HPDDM_dense.hpp:40-214),
 the variant used for boundary-element / H-matrix integrations (htool): the
 local matrices are dense, the global matrix-vector product is supplied by
 the user (pure virtual ``GMV``, HPDDM_dense.hpp:199), the local

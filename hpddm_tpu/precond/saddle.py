@@ -1,6 +1,6 @@
 """Schur-complement solves for saddle-point systems.
 
-TPU-native counterpart of the reference's PCHPDDM saddle-point support
+Counterpart of the reference's PCHPDDM saddle-point support
 (interface/petsc/pc/pchpddm.cxx:21, ``-pc_hpddm_schur_precondition``,
 PCHPDDMSchurPreTypes least-squares/geneo): the velocity block A of
 

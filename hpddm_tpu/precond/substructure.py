@@ -1,6 +1,6 @@
 """Substructuring preconditioners: FETI and BDD.
 
-TPU re-design of the reference's Schur-complement layer
+Re-design of the reference's Schur-complement layer
 (include/HPDDM_schur.hpp:40-812, HPDDM_FETI.hpp:40-475,
 HPDDM_BDD.hpp:40-334):
 
@@ -9,7 +9,7 @@ HPDDM_BDD.hpp:40-334):
   HPDDM_schur.hpp:338-353) and their kernels (rigid-body modes) are
   extracted from the same eigh,
 * the local Schur complements S_s = K_bb - K_bi K_ii^-1 K_ib are formed
-  as batched dense blocks on the MXU (``computeSchurComplement``,
+  as batched dense blocks (``computeSchurComplement``,
   HPDDM_schur.hpp:356-377),
 * FETI's dual space is the fully-redundant Lagrange-multiplier space: one
   multiplier per (unordered subdomain pair, shared dof), matching the
@@ -28,7 +28,7 @@ HPDDM_BDD.hpp:40-334):
   count. ``cheby`` goes further and replaces (G^T G)^-1 / (W^T S W)^-1 by
   a fixed-degree Chebyshev polynomial (a *linear* operator, so projected
   CG stays valid — the same design as the inexact local solves,
-  ops/cheby_solve.py, and the TPU answer to the reference's
+  ops/cheby_solve.py, and the answer to the reference's
   InexactCoarseOperator, include/HPDDM_inexact_coarse_operator.hpp:48);
   note cond(G^T G) grows with the subdomain-graph diameter, so cheby's
   FETI projection is for moderate subdomain counts — mfree is the

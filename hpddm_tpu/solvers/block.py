@@ -1,9 +1,9 @@
 """True block Krylov methods: BGMRES, BCG, BFBCG.
 
-TPU re-design of include/HPDDM_GMRES.hpp:159-313 (BGMRES) and
+Re-design of include/HPDDM_GMRES.hpp:159-313 (BGMRES) and
 include/HPDDM_CG.hpp:170-484 (BCG / BFBCG):
 
-* all small (mu x mu) algebra is batched dense on the MXU,
+* all small (mu x mu) algebra is batched dense,
 * rank deficiency is handled with eigh-based pseudo-inverses / column
   masking instead of RRQR column pivoting (fixed shapes for XLA): a
   direction whose Gram eigenvalue falls below ``deflation_tol`` stops
@@ -13,7 +13,7 @@ include/HPDDM_CG.hpp:170-484 (BCG / BFBCG):
 
 The block Hessenberg least-squares in BGMRES is solved per restart with a
 dense QR of the (k+1)mu x k*mu rotated matrix (small), not Givens — simpler
-and MXU-friendly at these sizes.
+and matmul-shaped at these sizes.
 """
 
 from __future__ import annotations
@@ -178,7 +178,7 @@ def bgmres(op: LinearOperator, b: jax.Array, x0: Optional[jax.Array] = None,
             # rhs: E1 R0 — block residual in the Krylov basis
             rhs = jnp.zeros(((m + 1) * mu, mu), dtype=dtype).at[:mu].set(R0)
             # regularized normal equations on the small system (sizes
-            # (m*mu)^2 ~ 160^2: cheap, MXU-friendly)
+            # (m*mu)^2 ~ 160^2: cheap, matmul-shaped)
             G = jnp.conj(Hmat).T @ Hmat
             G = G + 10 * jnp.finfo(rdtype).eps * jnp.trace(G).real \
                 * jnp.eye(m * mu, dtype=dtype) / (m * mu)

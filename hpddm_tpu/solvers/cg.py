@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradient, pseudo-block over multiple RHS.
 
-TPU re-design of the reference CG (include/HPDDM_CG.hpp:31-168):
+Re-design of the reference CG (include/HPDDM_CG.hpp:31-168):
 
 * POU-weighted dot products, with the reference's 3-term allreduce fusion
   (dir[0..2] in one MPI_Allreduce, HPDDM_CG.hpp:98-102) mirrored as a single

@@ -1,6 +1,6 @@
 """GCRO-DR: GMRES with deflated restarting and subspace recycling.
 
-TPU re-design of include/HPDDM_GCRODR.hpp:35-444 (single space; the block
+Re-design of include/HPDDM_GCRODR.hpp:35-444 (single space; the block
 variant reuses this machinery). Structure:
 
 * the recycled pair (U, C = A_prec U, C orthonormal) lives in the
@@ -17,7 +17,7 @@ variant reuses this machinery). Structure:
   cross products — the reference's "prod" allreduce
   (HPDDM_GCRODR.hpp:745-760). The small nonsymmetric eigensolves run as
   host callbacks (numpy), mirroring the reference's LAPACK geev calls —
-  XLA has no nonsymmetric eig on TPU.
+  XLA has no nonsymmetric eig on accelerators.
 * recycling across solves: pass ``recycled=result.recycled`` into the next
   call (the analogue of OptionsPrefix::storage_ / -hpddm_recycle_same_system).
 
@@ -767,8 +767,8 @@ def _arnoldi_cycle(op: LinearOperator, op_apply, r: jax.Array, beta,
 
     # v0 and C are passed as jit arguments (never closure-captured): at
     # flagship scale they are the dominant state and an embedded HLO
-    # literal both stalls the remote compile server (PERF.md 2026-08-19)
-    # and forces a recompile every cycle (r changes each restart).
+    # literal both inflates the compile and forces a recompile every
+    # cycle (r changes each restart).
     @jax.jit
     def run(v0, beta, C_arg, norm_j, it0):
         V0 = jnp.zeros((p + 1, S, n, mu), dtype=dtype).at[0].set(v0)

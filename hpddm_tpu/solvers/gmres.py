@@ -1,6 +1,6 @@
 """Restarted GMRES, pseudo-block over multiple right-hand sides.
 
-TPU re-design of the reference GMRES (include/HPDDM_GMRES.hpp:30-158):
+Re-design of the reference GMRES (include/HPDDM_GMRES.hpp:30-158):
 
 * left / right / flexible preconditioning (``-hpddm_variant``),
 * CGS (one fused Gram matmul + one psum) or MGS orthogonalization,
@@ -13,7 +13,7 @@ Everything is shape-static for XLA: the Krylov basis is a fixed
 (restart+1, S, n, mu) buffer, inner/outer loops are ``lax.while_loop``,
 and column counts are carried as traced integers with masking. CGS
 orthogonalizes against the full (restart+1)-row basis with a mask — on the
-MXU one large masked matmul beats a dynamic-length loop.
+device one large masked matmul beats a dynamic-length loop.
 """
 
 from __future__ import annotations

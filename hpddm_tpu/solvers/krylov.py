@@ -53,7 +53,7 @@ def solve(A, b: jax.Array, x0: Optional[jax.Array] = None,
     """Dispatch on ``-hpddm_krylov_method`` (HPDDM_iterative.hpp:1020-1111).
 
     b/x0 and the returned x use the caller's numbering: renumbered
-    decompositions (the TPU interface-first layout) permute on entry and
+    decompositions (the interface-first layout) permute on entry and
     unpermute on exit — two gathers per *solve*, not per iteration."""
     from hpddm_tpu.precond import schwarz as _schwarz
     dec = A.dec if isinstance(A, _schwarz.SchwarzState) else None

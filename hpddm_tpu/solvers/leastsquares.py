@@ -1,6 +1,6 @@
 """Preconditioned sparse least-squares solves (CGLS with a DD preconditioner).
 
-TPU-native counterpart of the reference's least-squares CI capability
+Counterpart of the reference's least-squares CI capability
 (.github/workflows/aldaas2021robust.sh:28-56: KSPLSQR + PCHPDDM applied to
 the normal equations — Al Daas, Jolivet, Scott 2021, "A robust algebraic
 domain decomposition preconditioner for sparse normal equations"):

@@ -1,9 +1,8 @@
 """Mixed-precision iterative refinement around the device solve.
 
-The TPU backend has no f64: a single-precision solve bottoms out at a
-true-residual floor ~ cond(A) * eps_f32 (measured 3e-3 at 1M dofs,
-contrast 1e4 — STATUS.md). The classic fix is iterative refinement with
-the residual in higher precision:
+A single-precision device solve bottoms out at a true-residual floor
+~ cond(A) * eps_f32. The classic fix is iterative refinement with the
+residual in higher precision:
 
     repeat: r = b - A x          (host, f64, per-subdomain CSR SpMV)
             e = solve(r)         (device, f32, the full DD preconditioned
@@ -12,9 +11,9 @@ the residual in higher precision:
 
 Each pass multiplies the true residual by the f32-achievable reduction,
 so 2-4 passes reach f64-grade residuals while every FLOP of the inner
-solve stays on the MXU/VPU in f32. This generalizes the reference's
+solve stays on the device in f32. This generalizes the reference's
 mixed-precision design (HPDDM downscales only the *coarse* level,
-HPDDM_coarse_operator.hpp:73); on TPU the whole device solve is the
+HPDDM_coarse_operator.hpp:73); here the whole device solve is the
 "low" precision and the host plays the f64 role.
 
 The per-subdomain residual is exact on every row with a complete stencil;
@@ -39,7 +38,7 @@ def solve_refined_device(state, f, opt=None, tol: float = 1.0e-12,
     Same loop as :func:`solve_refined`, but the f64 role is played by
     double-word f32 arithmetic (ops/doubleword.py): the solution is the
     unevaluated pair ``x = hi + lo`` and the per-subdomain residual
-    ``b - A x`` is computed with error-free transforms on the VPU. The
+    ``b - A x`` is computed with error-free transforms on the device. The
     consistency projection (POU-scale + copy-sum) is applied to the hi/lo
     components separately — safe because the projected copies are
     near-equal small residuals (no cancellation), unlike the GMV exchange
@@ -80,8 +79,7 @@ def solve_refined_device(state, f, opt=None, tol: float = 1.0e-12,
         return rh, rel
 
     # state crosses the jit boundary as an ARGUMENT: closure-captured
-    # states are embedded as HLO literals, unbounded remote compile at
-    # GB scale (PERF.md 2026-08-19)
+    # states are embedded as HLO literals
     @jax.jit
     def correct(st, xh, xl, rh):
         res = _solve_core(st, rh, None, opt, axis_name)
@@ -161,6 +159,10 @@ def solve_refined(solve_fn: Callable, mats: Sequence[MatrixCSR],
         return np.sqrt(np.sum(d64[:, :, None] * v * v))
 
     nb = wnorm(f64)            # f is consistent by assumption
+    # summed POU weight of every dof's copies: 1 up to the rounding of a
+    # low-precision d, divided out when x is made consistent
+    dsum = _host_consistency(dec, np.broadcast_to(
+        d64[:, :, None], (S, n_max, 1)).copy())
     history, inner_its = [], []
     dev_dtype = np.asarray(f).dtype    # the device precision (e.g. f32)
     for p in range(max_refine):
@@ -181,5 +183,12 @@ def solve_refined(solve_fn: Callable, mats: Sequence[MatrixCSR],
         res = solve_fn(rcons.astype(dev_dtype))
         e = np.asarray(res.x, dtype=np.float64)
         inner_its.append(int(np.max(np.asarray(res.iterations))))
-        x += e
+        # the device correction's copies of a duplicated dof agree only
+        # to its working precision; averaging them keeps x one global
+        # vector, so the host residual above sees what a caller assembles
+        # (unaveraged, the disagreement sits in the residual's blind spot
+        # and caps the global residual near cond(A) * eps_dev * |x|)
+        x = np.where(dsum > 0, _host_consistency(
+            dec, d64[:, :, None] * (x + e)) / np.where(dsum > 0, dsum, 1),
+            x + e)
     return x, {"history": history, "inner_iterations": inner_its}

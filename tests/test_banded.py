@@ -268,7 +268,7 @@ def test_device_factor_matches_host_f64():
 
 
 def test_device_factor_f32_accuracy():
-    """f32 device factorization (the TPU path): the factors must solve the
+    """f32 device factorization (the GPU path): the factors must solve the
     local systems to ~f32 accuracy — per-step f32 errors must not compound
     through the recursion (heterogeneous contrast, Jacobi-scaled-like)."""
     gen = _hetero_gen(Nx=64, Ny=64, contrast=1e3)

@@ -1,7 +1,7 @@
 """Inexact Chebyshev local solves (ops/cheby_solve.py).
 
 The reference's local solves are exact sparse direct factorizations; the
-Chebyshev path is the TPU-native inexact alternative for large
+Chebyshev path is the inexact alternative for large
 heterogeneous subdomains (no O(n^2) factor memory). Oracles: the outer
 GMRES iteration count with DST-preconditioned Chebyshev local solves must
 stay close to the exact-inverse count, and far under the reference's

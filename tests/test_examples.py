@@ -83,3 +83,20 @@ def test_driver_gcrodr_sequence():
 def test_model_drivers(args):
     r = _run(args)
     assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+
+
+def test_oracle_cpu_f32_iterations(monkeypatch, capsys):
+    """The 100^2/4 two-level GenEO oracle in f32 on the CPU takes exactly
+    the count chip_smoke.py's phase 1 compares the GPU with (+-2)."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import examples.schwarz as drv
+    import hpddm_tpu.device as device
+
+    monkeypatch.setattr(device, "working_dtype",
+                        lambda complex_=False: np.float32)
+    assert drv.main(list(chip_smoke.ORACLE_ARGS)) == 0
+    out = capsys.readouterr().out
+    assert f"converges after {chip_smoke.ORACLE_CPU_F32_ITS} iterations" \
+        in out, out[-2000:]

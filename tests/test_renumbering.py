@@ -1,4 +1,4 @@
-"""Interface-first renumbering (the TPU fast exchange path) must be
+"""Interface-first renumbering (the fast exchange path) must be
 semantically identical to the original-numbering path."""
 
 import numpy as np

@@ -159,3 +159,27 @@ def test_gmv_dtype_bf16_mirror():
     rel = np.linalg.norm(ybf - y32) / np.linalg.norm(y32)
     assert rel < 1e-2, rel                         # bf16 epsilon ~ 8e-3
     assert rel > 0                                 # mirror actually used
+
+
+@pytest.mark.parametrize("S,Nx,Ny", [(4, 40, 40), (2, 100, 60)])
+@pytest.mark.parametrize("mu", [1, 3, 4])
+def test_flat_dia_spmm_matches_scipy(S, Nx, Ny, mu):
+    """The flat (non-canvas) DIA SpMM of a grid operator without a
+    ``set_grid_geometry`` annotation — the product the oracle runs —
+    against each subdomain's scipy CSR product."""
+    from hpddm_tpu.core.formats import BatchedDIA
+    from hpddm_tpu.models import diffusion2d
+    from hpddm_tpu.options import Options
+    from hpddm_tpu.precond.schwarz import Schwarz
+
+    gen = diffusion2d.generate(S, Nx, Ny, overlap=1)
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=Options())
+    A = sch.operator_state().A
+    assert isinstance(A, BatchedDIA) and A.canvas_hw is None
+    x = np.random.default_rng(0).normal(size=(S, sch.n_max, mu))
+    y = np.asarray(spmm(A, jnp.asarray(x)))
+    for s, m in enumerate(gen.mats):
+        ref = m.scipy(expand=True) @ x[s, : m.n]
+        np.testing.assert_allclose(y[s, : m.n], ref, rtol=1e-12,
+                                   atol=1e-11)

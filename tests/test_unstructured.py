@@ -145,26 +145,21 @@ def test_heterogeneous_graded(gen):
     assert int(res.iterations) <= 25
 
 
-def test_windowed_kernel_matches_ell(gen):
-    """Interpret-mode windowed lane-gather SpMV == ELL gather bitwise-ish
-    (ops/pallas_ell.py; the TPU unstructured hot path)."""
-    import dataclasses
-    import os
-    os.environ["HPDDM_TPU_FORCE_WINDOWED"] = "1"
-    try:
-        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d)
-        st = sch.build()
-        assert st.A.windowed is not None
-        from hpddm_tpu.ops.pallas_ell import spmm_windowed
-        from hpddm_tpu.ops.spmv import spmm_ell
-        rng = np.random.default_rng(3)
-        x = jnp.asarray(rng.normal(size=(8, sch.n_max, 2)))
-        y1 = np.asarray(spmm_windowed(st.A, x, interpret=True))
-        y2 = np.asarray(spmm_ell(
-            dataclasses.replace(st.A, windowed=None), x))
-        assert np.abs(y1 - y2).max() / np.abs(y2).max() < 1e-12
-    finally:
-        os.environ.pop("HPDDM_TPU_FORCE_WINDOWED", None)
+def test_ell_spmm_matches_scipy(gen):
+    """The XLA ELL SpMM (take_along_axis gather + row reduction) against
+    each subdomain's scipy CSR product, two RHS."""
+    from hpddm_tpu.core.formats import BatchedELL
+    from hpddm_tpu.ops.spmv import spmm
+
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d)
+    assert isinstance(sch.A, BatchedELL)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(8, sch.n_max, 2))
+    y = np.asarray(spmm(sch.A, jnp.asarray(x)))
+    for s, m in enumerate(gen.mats):
+        ref = m.scipy(expand=True) @ x[s, : m.n]
+        np.testing.assert_allclose(y[s, : m.n], ref, rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_rcm_local_alignment(gen):
@@ -178,26 +173,24 @@ def test_rcm_local_alignment(gen):
             np.testing.assert_array_equal(gs, gq)
 
 
-def test_pexchange_bitwise(gen):
-    """Pallas static-gather exchange (parallel/pexchange.py) must be
-    bitwise identical to the XLA general path (interpret mode)."""
-    import dataclasses
-    import os
-    os.environ["HPDDM_TPU_FORCE_PEXCH"] = "1"
-    try:
-        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d)
-        dec = sch.dec
-        assert dec.pexch is not None
-        from hpddm_tpu.parallel.ops import exchange
-        from hpddm_tpu.parallel.pexchange import pexchange
-        rng = np.random.default_rng(5)
-        x = jnp.asarray(rng.normal(size=(8, sch.n_max, 2)))
-        y_ref = np.asarray(exchange(
-            dataclasses.replace(dec, pexch=None), x))
-        y_ker = np.asarray(pexchange(dec.pexch, x, interpret=True))
-        assert np.array_equal(y_ref, y_ker)
-    finally:
-        os.environ.pop("HPDDM_TPU_FORCE_PEXCH", None)
+def test_general_exchange_matches_add_at(gen):
+    """The general (caller-numbering) exchange: every copy of a shared
+    dof ends up holding the sum of all copies — checked against a numpy
+    ``np.add.at`` over the global ids of the subdomains."""
+    from hpddm_tpu.parallel.ops import exchange
+
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d)
+    assert sch.dec.grid is None and not sch.dec.renumbered
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(8, sch.n_max, 2))
+    y = np.asarray(exchange(sch.dec, jnp.asarray(x)))
+    total = np.zeros((gen.A_global.shape[0], 2))
+    for s in range(8):
+        np.add.at(total, gen.gids[s], x[s, : gen.n_loc[s]])
+    for s in range(8):
+        np.testing.assert_allclose(y[s, : gen.n_loc[s]],
+                                   total[gen.gids[s]], rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_unstructured_sharded_matches_batched(gen):
@@ -229,9 +222,9 @@ def test_unstructured_sharded_matches_batched(gen):
 
 
 def test_unstructured_block_methods(gen):
-    """True-block BGMRES mu=3 on the unstructured pipeline (per-RHS
-    windowed/exchange loops on TPU; ELL path on CPU) — per-RHS residual
-    gates like the reference's block drivers."""
+    """True-block BGMRES mu=3 on the unstructured pipeline (ELL SpMM and
+    general exchange) — per-RHS residual gates like the reference's block
+    drivers."""
     from hpddm_tpu.precond.schwarz import compute_residual
 
     S = 8

@@ -1,19 +1,16 @@
 #!/usr/bin/env python
 """Multi-RHS (muT, RHS-leading) GMV component benchmark.
 
-VERDICT r4 #5: mu >= 3 block GMV rides an HBM-spilling path (2 026 us at
-2048^2/16 mu=4 vs ~280 us ideal).  This tool isolates, fetch-synced and
-length-differenced inside one process (chip drift protocol, PERF.md):
+At mu >= 3 the fused block GMV can spill its accumulator.  This tool
+isolates, fetch-synced and length-differenced inside one process:
 
   * spmmT   : spmm_dia_canvas_muT on (S, mu, n)        [XLA canvas]
-  * spmmP   : Pallas flat-DIA blocked_mu on (S, mu, n) [values streamed
-              once, x panel resident — correct for grid-born DIA because
-              the seam entries are zero in the stored values]
+  * spmmS   : the same as a lax.scan over RHS pairs (mu > 2)
   * exchT   : d-scale + grid_exchange_muT
   * gmvT    : full muT GMV (spmm + scale + exchange), state as jit arg
-  * gmvP    : Pallas spmm + scale + exchange
+  * gmvS    : the scanned GMV (mu > 2)
 
-Usage: python tools/bench_mut.py [S Nx Ny] [--mu 1,2,4,8]
+Usage: python tools/bench_mut.py [S Nx Ny] [--mu=1,2,4,8]
 """
 
 import os
@@ -85,18 +82,12 @@ def main():
           f"n_max={sch.n_max} nnz={nnz/1e6:.1f}M canvas={A.canvas_hw} "
           f"offsets={A.offsets}", flush=True)
 
-    from hpddm_tpu.ops.pallas_spmv import (_dia_spmv_blocked_muT,
-                                           spmm_dia_pallas_muT)
     from hpddm_tpu.ops.spmv import spmm_dia_canvas_muT_scan
     from hpddm_tpu.parallel.grid import grid_exchange_muT_scan
 
-    def gmvT(st, xT, use_pallas=False):
+    def gmvT(st, xT):
         dec = st.dec
-        if use_pallas:
-            yT = spmm_dia_pallas_muT(st.A, xT)
-        else:
-            yT = spmm_dia_canvas_muT(st.A, xT)
-        yT = yT * dec.d[:, None, :]
+        yT = spmm_dia_canvas_muT(st.A, xT) * dec.d[:, None, :]
         return grid_exchange_muT(dec.grid, yT, None)
 
     def gmvT_scan(st, xT):
@@ -105,19 +96,11 @@ def main():
         return grid_exchange_muT_scan(st.dec.grid, yT, None)
 
     rng = np.random.default_rng(0)
-    on_tpu = jax.default_backend() not in ("cpu",)
     for mu in mus:
         xT = jnp.asarray(rng.normal(size=(S, mu, sch.n_max)).astype(dtype))
         rows = {}
         rows["spmmT"] = scan_time_arg(
             lambda st, v: spmm_dia_canvas_muT(st.A, v), state, xT)
-        if on_tpu:
-            try:
-                rows["spmmP"] = scan_time_arg(
-                    lambda st, v: spmm_dia_pallas_muT(st.A, v), state, xT)
-            except Exception as e:  # noqa: BLE001 — remote Mosaic errors
-                print(f"  spmmP mu={mu}: FAILED {type(e).__name__}: "
-                      f"{str(e)[:200]}", flush=True)
         if mu > 2:
             rows["spmmS"] = scan_time_arg(
                 lambda st, v: spmm_dia_canvas_muT_scan(st.A, v, pair=2),
@@ -132,40 +115,10 @@ def main():
         rows["gmvT"] = scan_time_arg(gmvT, state, xT)
         if mu > 2:
             rows["gmvS"] = scan_time_arg(gmvT_scan, state, xT)
-        if on_tpu and "spmmP" in rows and "--brsweep" in sys.argv:
-            try:
-                rows["gmvP"] = scan_time_arg(
-                    lambda st, v: gmvT(st, v, use_pallas=True), state, xT)
-            except Exception as e:  # noqa: BLE001
-                print(f"  gmvP mu={mu}: FAILED {type(e).__name__}: "
-                      f"{str(e)[:200]}", flush=True)
-        if on_tpu and "--brsweep" in sys.argv and mu in (1, 4):
-            for br in (128, 512, 1024):
-                try:
-                    t = scan_time_arg(
-                        lambda st, v: _dia_spmv_blocked_muT(
-                            st.A.values, v, tuple(st.A.offsets),
-                            block_rows=br), state, xT)
-                    rows[f"P{br}"] = t
-                except Exception as e:  # noqa: BLE001
-                    print(f"  P{br} mu={mu}: FAILED {type(e).__name__}: "
-                          f"{str(e)[:160]}", flush=True)
         msg = f"mu={mu}:"
         for k, v in rows.items():
             msg += f"  {k}={v*1e6:8.1f}us({v*1e6/mu:7.1f}/rhs)"
         print(msg, flush=True)
-
-    # numerical check of the Pallas muT path (CPU interpret or chip)
-    mu = 2
-    xT = jnp.asarray(rng.normal(size=(S, mu, sch.n_max)).astype(dtype))
-    ref = np.asarray(spmm_dia_canvas_muT(A, xT))
-    try:
-        got = np.asarray(spmm_dia_pallas_muT(A, xT, interpret=not on_tpu))
-        err = np.abs(ref - got).max() / max(np.abs(ref).max(), 1e-30)
-        print(f"pallas muT vs canvas muT: rel err {err:.2e}", flush=True)
-    except Exception as e:  # noqa: BLE001
-        print(f"pallas muT check FAILED {type(e).__name__}: {str(e)[:300]}",
-              flush=True)
 
 
 if __name__ == "__main__":

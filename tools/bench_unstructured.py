@@ -67,7 +67,6 @@ def main():
     nx = argv[0]
     S = argv[1] if len(argv) > 1 else 16
     dtype = np.float32
-    on_tpu = jax.default_backend() not in ("cpu",)
 
     t0 = time.perf_counter()
     gen = unstructured.generate(S, nx, nx, overlap=2, with_neumann=True,
@@ -82,32 +81,24 @@ def main():
     rng = np.random.default_rng(0)
 
     # --- primary pipeline: RCM-band runtime numbering ------------------
-    # windowed lane-gather SpMV (ops/pallas_ell.py) + general exchange
+    # XLA ELL SpMM + general exchange
     opt = Options(tol=1e-6, local_solver="banded",
                   schwarz_coarse_correction="deflated", geneo_nu=8)
     sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                   options=opt)
     state = sch.operator_state()
-    we = getattr(state.A, "windowed", None)
     print(f"fmt={type(state.A).__name__} n_max={sch.n_max} "
-          f"m_max={state.dec.m_max} windowed="
-          f"{None if we is None else (we.w_pad, we.QT, we.bandwidth)}",
-          flush=True)
+          f"m_max={state.dec.m_max}", flush=True)
     x = jnp.asarray(rng.normal(size=(S, sch.n_max, 1)).astype(dtype))
 
     t_sp = scan_time_arg(lambda st, v: spmm(st.A, v), state, x)
-    print(f"spmm windowed  : {t_sp*1e6:9.1f} us  "
+    print(f"spmm ELL-gather: {t_sp*1e6:9.1f} us  "
           f"({nnz/t_sp/1e9:.1f} GNnz/s)", flush=True)
-    import dataclasses as _dc
-    st_plain = _dc.replace(state, A=_dc.replace(state.A, windowed=None))
-    t_spx = scan_time_arg(lambda st, v: spmm(st.A, v), st_plain, x)
-    print(f"spmm ELL-gather: {t_spx*1e6:9.1f} us  "
-          f"({nnz/t_spx/1e9:.1f} GNnz/s)", flush=True)
     t_ex = scan_time_arg(lambda st, v: scaled_exchange(st.dec, v),
                          state, x)
     print(f"exch general   : {t_ex*1e6:9.1f} us", flush=True)
     t_gm = scan_time_arg(lambda st, v: gmv(st, v), state, x)
-    print(f"gmv rcm+window : {t_gm*1e6:9.1f} us  "
+    print(f"gmv rcm        : {t_gm*1e6:9.1f} us  "
           f"({nnz/t_gm/1e9:.1f} GNnz/s)", flush=True)
 
     # --- alternative: interface-first renumbered layout ----------------
